@@ -1,7 +1,7 @@
-"""fluidsim_tpu — a TPU-native PIC/FLIP + MPM fluid simulation framework.
+"""fluidsim_tpu — a PIC/FLIP + MPM fluid simulation framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-C++ simulator Aakash1312/Fluid-Simulation (see /root/repo/SURVEY.md):
+Built from scratch in JAX/XLA with the capabilities of the reference
+C++ simulator Aakash1312/Fluid-Simulation (see SURVEY.md):
 
 * ``models.flip`` — PIC+FLIP incompressible liquid on a MAC grid with a
   matrix-free pressure Poisson projection (reference: ``fluid.cc``).
@@ -10,8 +10,8 @@ C++ simulator Aakash1312/Fluid-Simulation (see /root/repo/SURVEY.md):
   (reference: ``mpm.cc`` + ``deformHeader.h``).
 * ``ops`` — device-side building blocks: B-spline transfer kernels,
   P2G/G2P, stencil Laplacian, PCG, batched 3x3 SVD/polar.
-* ``parallel`` — multi-chip domain decomposition (``shard_map`` + halo
-  exchange over ICI) for grids and particles.
+* ``parallel`` — multi-device domain decomposition (``shard_map`` + halo
+  exchange by ``ppermute``) for grids and particles.
 * ``io`` — OpenVDB-4.0.2-compatible ``.vdb`` export, checkpoints, metrics.
 * ``compat`` — bit-compatible reproduction of the reference's particle
   seeding (std::mt19937 + UniformPointScatter semantics).

@@ -19,7 +19,7 @@ The reference uses a cubic B-spline compressed to support ``|x| < 1`` (i.e.
 * ``getSplineGradient`` (``deformHeader.h:54-88``): the signed derivative of
   ``spline2``.
 
-All functions are pure jnp element-wise ops (VPU-friendly, fusible).
+All functions are pure jnp element-wise ops (fusible).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """ctypes bindings for the native VDB encoder + async writer queue
 (``native/vdbio.cc``) with transparent fallback to the pure-Python writer.
 
-The queue is the TPU-native analogue of ``openvdb::io::Queue``
+The queue is the analogue of ``openvdb::io::Queue``
 (``openvdb/io/Queue.h:248``): frame exports are handed to a background
 thread so the device frame loop never stalls on encoding or disk.
 """
@@ -9,6 +9,7 @@ thread so the device frame loop never stalls on encoding or disk.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import uuid as _uuid
@@ -16,23 +17,35 @@ import uuid as _uuid
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_NATIVE_DIR = os.path.join(_HERE, "..", "..", "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libvdbio.so")
+NATIVE_DIR = os.path.normpath(os.path.join(_HERE, "..", "..", "native"))
+_LIB_PATH = os.path.join(NATIVE_DIR, "libvdbio.so")
 
 _lib = None
+
+
+def build_native(*targets: str, force: bool = False) -> bool:
+    """Build ``native/`` targets from the committed sources through ``make``,
+    which rebuilds whatever is older than its source (``force``: all of
+    them, as ``make -B``).  One build at a time per checkout: concurrent
+    processes (test workers) wait on a lock instead of racing the linker.
+    Returns False when the toolchain is missing or the build fails."""
+    cmd = ["make", "-C", NATIVE_DIR] + (["-B"] if force else []) + list(targets)
+    try:
+        with open(os.path.join(NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.DEVNULL)
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return all(os.path.exists(os.path.join(NATIVE_DIR, t)) for t in targets)
 
 
 def _ensure_lib():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.check_call(["make", "-C", _NATIVE_DIR, "libvdbio.so"],
-                                  stdout=subprocess.DEVNULL,
-                                  stderr=subprocess.DEVNULL)
-        except (OSError, subprocess.CalledProcessError):
-            return None
+    if not build_native("libvdbio.so"):
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

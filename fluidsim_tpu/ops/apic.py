@@ -96,8 +96,8 @@ def g2p_apic(pos_s, flat_s, vc, bound: int, wall: int, kernel: str = "flip"):
             - dbar[:, :, None] * dbar[:, None, :])
     eye = jnp.eye(3, dtype=pos_s.dtype)
     dreg = dmat + 1e-3 * eye
-    # closed-form inverse via adjugate/det (dreg is SPD 3x3): batched
-    # jnp.linalg.solve costs ~8x the whole G2P at 2M particles on TPU.
+    # closed-form inverse via adjugate/det (dreg is SPD 3x3): a batched
+    # jnp.linalg.solve is an iterative library call per particle.
     from fluidsim_tpu.ops.svd3 import cofactor3, det3, mm3
     det = det3(dreg)
     inv = jnp.swapaxes(cofactor3(dreg), -1, -2) / det[..., None, None]

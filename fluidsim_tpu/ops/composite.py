@@ -1,6 +1,6 @@
 """Grid compositing, masking and topology utilities.
 
-TPU-native answers to a family of small OpenVDB tool headers the apps never
+Dense-array answers to a family of small OpenVDB tool headers the apps never
 call but the library exposes (SURVEY.md §2.2 "40 headers"):
 
   * ``openvdb/tools/Composite.h`` — ``compMax/compMin/compSum/compMul/

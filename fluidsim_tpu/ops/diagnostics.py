@@ -4,7 +4,7 @@ The reference tool walks the tree checking values against predicates
 (``checkLevelSet``: finite, symmetric background, |∇φ|≈1 in the band,
 no active tiles; ``checkFogVolume``: finite, values in [0,1];
 ``CheckNan``/``CheckInf``/``CheckRange``...) and returns a report string
-plus an optional mask of offending voxels.  Dense TPU version: each check
+plus an optional mask of offending voxels.  Dense version: each check
 is one fused reduction pass; masks are bool arrays.  These back the frame
 loop's failure detection (SURVEY.md §5 — the reference has none).
 """

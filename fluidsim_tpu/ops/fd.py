@@ -1,4 +1,4 @@
-"""Finite-difference scheme family — TPU-native ``openvdb/math/FiniteDifference.h``.
+"""Finite-difference scheme family — ``openvdb/math/FiniteDifference.h`` as dense passes.
 
 The reference ships a menu of first-derivative schemes (``DScheme``,
 ``FiniteDifference.h:59-77``: central 2nd/4th/6th order, one-sided

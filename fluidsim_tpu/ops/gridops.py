@@ -7,7 +7,7 @@ laplacian, meanCurvature, magnitude, normalize) built on the index-space
 stencils of ``openvdb/math/Operators.h`` (``ISGradient<CD_2ND>``,
 ``ISLaplacian<CD_SECOND>``, ``ISDivergence``, ...).  The apps never call
 them (SURVEY.md §2.2) but they are part of the library surface, so the
-TPU-native framework provides the same capability as fused dense-array
+framework provides the same capability as fused dense-array
 ops: every operator is a handful of shifted adds that XLA fuses into one
 HBM pass, instead of a TBB leaf-node sweep.
 

@@ -1,4 +1,4 @@
-"""Level-set utilities — the TPU-native answers to the capability-relevant
+"""Level-set utilities — the dense-array answers to the capability-relevant
 ``openvdb/tools`` level-set family the reference vendors
 (``LevelSetSphere.h``, ``ParticlesToLevelSet.h``, ``LevelSetUtil`` fog
 conversion, ``LevelSetMeasure``): SDF construction, CSG, particle surface

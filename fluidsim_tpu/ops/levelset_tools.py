@@ -1,11 +1,11 @@
 """Level-set evolution tools: rebuild, filter, morph, track, measure.
 
-Completes the TPU-native answer to the reference's level-set tool family
+Completes the dense-array answer to the reference's level-set tool family
 (``openvdb/tools/LevelSetRebuild.h``, ``LevelSetFilter.h``,
 ``LevelSetMorph.h``, ``LevelSetTracker.h``, ``LevelSetMeasure.h`` — none
 are called by the apps, SURVEY.md §2.2, but all are part of the library
 surface).  The reference implementations are narrow-band sparse-tree
-algorithms threaded over leaf nodes with TBB; on TPU each is a dense
+algorithms threaded over leaf nodes with TBB; here each is a dense
 whole-grid pass — a few shifted adds XLA fuses into one HBM sweep, with
 the "narrow band" expressed as a cell mask that freezes far-field values
 rather than as tree topology.
@@ -55,7 +55,7 @@ def redistance(phi, iterations: int = 20, dx: float = 1.0, band: float | None = 
     """PDE reinitialization: evolve ``φ_t = S(φ₀)(1 − |∇φ|)`` to restore
     the signed-distance property while preserving the zero level set.
 
-    TPU-native equivalent of ``tools::LevelSetRebuild`` /
+    Dense equivalent of ``tools::LevelSetRebuild`` /
     ``LevelSetTracker::normalize`` — those re-mesh or renormalize the
     narrow band; this runs the classic Sussman–Smereka–Osher relaxation
     with Godunov upwinding, fixed trip count, CFL ``dt = 0.3 dx``.

@@ -1,7 +1,7 @@
 """Triangle mesh -> signed distance volume (the ``MeshToVolume`` tool family
 of the vendored OpenVDB, ``reference/openvdb/tools/MeshToVolume.h``).
 
-TPU-native formulation: instead of the reference's per-voxel BVH walks and
+Dense formulation: instead of the reference's per-voxel BVH walks and
 scanline sign sweeps, the whole grid is resolved with two fully batched
 reductions over triangles —
 
@@ -12,9 +12,8 @@ reductions over triangles —
     van Oosterom-Strackee via atan2), which is robust to open edges and
     non-manifold junk where pseudo-normal tests are not.
 
-Both are pure dense math — no trees, no traversal — so XLA keeps the
-``(Q, T)`` tiles on the MXU-friendly path and the point dimension can be
-sharded.  Triangle counts in the low tens of thousands at 128^3 fit in one
+Both are pure dense math — no trees, no traversal — so XLA fuses the
+``(Q, T)`` tiles and the point dimension can be sharded.  Triangle counts in the low tens of thousands at 128^3 fit in one
 pass; larger meshes chunk over the query dimension via ``lax.map``.
 """
 

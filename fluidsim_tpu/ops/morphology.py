@@ -3,7 +3,7 @@
 The reference library offers topology dilation/erosion of active masks
 (``tools::dilateVoxels`` / ``tools::erodeVoxels``) with three neighborhood
 patterns (``NN_FACE`` = 6, ``NN_FACE_EDGE`` = 18, ``NN_FACE_EDGE_VERTEX`` =
-26).  On dense TPU-resident masks these are max/min-pools expressed as
+26).  On dense device-resident masks these are max/min-pools expressed as
 shifted ORs — one fused XLA pass per iteration, no tree topology to
 maintain.  Out-of-box neighbors read the background (inactive), matching
 OpenVDB semantics on an unbounded tree clipped to our dense box.

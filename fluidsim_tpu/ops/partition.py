@@ -5,7 +5,7 @@ The reference library builds acceleration structures mapping voxels to the
 points inside them: ``PointIndexGrid`` stores per-leaf sorted point-index
 lists for range queries, and ``PointPartitioner`` bucket-sorts points by
 voxel/page for cache-coherent streaming.  The apps never call either
-(SURVEY.md §2.2), but the same capability is what makes TPU transfers
+(SURVEY.md §2.2), but the same capability is what makes device transfers
 fast, so the framework exposes it as a first-class op: a dense
 counts/offsets (CSR) partition built from one sort — the same idiom the
 fused transfer kernels use internally (``ops/transfer_fast.py``).
@@ -53,7 +53,7 @@ def cells_of(pos, bound: int):
 
 def partition_by_cell(pos, bound: int) -> CellPartition:
     """Build the cell partition of a particle set in one sort + one
-    scatter-add (the TPU replacement for PointPartitioner's bucket radix
+    scatter-add (the dense replacement for PointPartitioner's bucket radix
     sort)."""
     n = 2 * bound + 1
     flat = cells_of(pos, bound)

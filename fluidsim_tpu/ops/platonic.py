@@ -4,7 +4,7 @@ The reference builds each solid as a triangle mesh and runs it through
 ``meshToVolume`` (``createLevelSetPlatonic(faces, scale, center, ...)``
 with faces ∈ {4, 6, 8, 12, 20}).  Same design here: exact vertex tables,
 faces recovered by supporting-plane detection (numpy, at import time —
-these are 4..20-vertex convex solids), then the TPU ``mesh_to_sdf`` gather
+these are 4..20-vertex convex solids), then the dense ``mesh_to_sdf`` gather
 (``ops/mesh.py``) voxelizes.  Meshes are also useful on their own (demo /
 test fodder for VolumeToMesh round trips).
 """

@@ -1,12 +1,13 @@
 """Level-set ray tracer (the ``LevelSetRayTracer`` / ``RayIntersector``
 family of the vendored OpenVDB, ``reference/openvdb/tools/RayTracer.h``).
 
-TPU-native formulation: one jitted sphere-trace over the *whole image* at
+Dense formulation: one jitted sphere-trace over the *whole image* at
 once — rays are a (H*W, 3) batch, each ``lax.while_loop`` iteration advances
 every live ray by the trilinearly-sampled SDF value (safe step for a proper
 distance field), and shading is a batched central-difference normal +
-Lambertian.  No per-ray recursion, no hierarchical DDA: at TPU batch sizes
-the dense march saturates the VPU and the whole render is one kernel.
+Lambertian.  No per-ray recursion, no hierarchical DDA: the whole image
+is one batch, so the dense march fills the device and the whole render is
+one jitted loop.
 """
 
 from __future__ import annotations

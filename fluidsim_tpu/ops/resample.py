@@ -4,7 +4,7 @@ and multi-resolution sampling (``openvdb/tools/MultiResGrid.h``).
 The reference's ``GridTransformer`` applies a decomposed affine map
 (scale → rotate → translate) voxel-by-voxel with point/box/quadratic
 samplers over TBB leaf ranges; ``MultiResGrid`` stores a mip pyramid and
-interpolates between levels.  TPU-native: resampling is one gather —
+interpolates between levels.  Here resampling is one gather —
 generate the target lattice, push it through the affine map into source
 index space, and trilinearly sample; a mip pyramid is repeated 2× mean
 pooling (one reshape-mean each) with fractional-level sampling as a lerp

@@ -1,9 +1,10 @@
 """Unrolled per-particle small-matrix contractions.
 
-Batched tiny matmuls / dot_generals — (P,3,3) x (P,27,3)-style — pad both
-operands to MXU tiles on TPU (~40x waste at millions of particles).  These
-helpers unroll the 3-sized dimensions into (P,27)-sliced elementwise
-multiplies and reductions, which the VPU executes at full width.
+Batched tiny matmuls / dot_generals — (P,3,3) x (P,27,3)-style — have a
+contraction of 3, far too small for a matrix unit, and at default
+precision an f32 product may run in reduced precision (TF32 on the H100).
+These helpers unroll the 3-sized dimensions into (P,27)-sliced elementwise
+multiplies and reductions in full f32, which XLA fuses.
 """
 
 from __future__ import annotations

@@ -17,11 +17,10 @@ import jax.numpy as jnp
 
 
 def mm3(a, b):
-    """Batched 3x3 matmul, unrolled to f32 elementwise VPU ops.  A bare
-    ``@`` lowers to an MXU dot at DEFAULT (bf16-input) precision on TPU —
-    measured 4e-3 relative error on the SVD outputs, which wrecked MPM's
-    C++-oracle KE parity (0.6 median vs 1e-4) — and a HIGHEST-precision
-    dot pads the tiny contraction onto MXU tiles (ops/smallmat lesson).
+    """Batched 3x3 matmul, unrolled to f32 elementwise ops.  A bare ``@``
+    runs at DEFAULT precision, which may be reduced precision (TF32 on the
+    H100, ~1e-3 relative error); reduced-precision products of the SVD
+    outputs once wrecked MPM's C++-oracle KE parity (0.6 median vs 1e-4).
     Every product in this module goes through here."""
     return jnp.stack(
         [jnp.stack([a[..., i, 0] * b[..., 0, j]
@@ -38,9 +37,8 @@ def mv3(a, x):
 
 def _rot_apply(a, v, p: int, q: int, c, s):
     """Apply the Givens rotation J(p,q; c,s) as A <- J^T A J, V <- V J,
-    all in batched elementwise ops (A symmetric (...,3,3)).  Tiny 3x3
-    matmuls would pad to MXU tiles (see ops/smallmat.py); on the VPU this
-    is ~30 flops."""
+    all in batched elementwise ops (A symmetric (...,3,3)): ~30 flops,
+    no matrix unit involved (see ops/smallmat.py)."""
     r = 3 - p - q
     app, aqq, apq = a[..., p, p], a[..., q, q], a[..., p, q]
     arp, arq = a[..., r, p], a[..., r, q]
@@ -66,8 +64,7 @@ def _rot_apply(a, v, p: int, q: int, c, s):
 def _jacobi_eigh3(a, sweeps: int = 5):
     """Batched symmetric 3x3 eigendecomposition by UNROLLED cyclic Jacobi
     (no data-dependent control flow — ``jnp.linalg`` routines lower to
-    ``while_loop`` iterations that cost ~23 ms for a 6k batch on TPU; five
-    unrolled sweeps reach f32 machine precision and cost microseconds).
+    iterative loops; five unrolled sweeps reach f32 machine precision).
     Returns (w, V) with A ~= V diag(w) V^T, V orthogonal."""
     v = jnp.broadcast_to(jnp.eye(3, dtype=a.dtype), a.shape)
     for _ in range(sweeps):
@@ -158,8 +155,8 @@ def svd3(F):
 
 
 def svd3_xla(F):
-    """The ``jnp.linalg.svd`` route (iterative; slow on TPU at small
-    batches) — kept as the cross-validation oracle for ``svd3``."""
+    """The ``jnp.linalg.svd`` route (iterative) — kept as the
+    cross-validation oracle for ``svd3``."""
     return jnp.linalg.svd(F, full_matrices=False)
 
 
@@ -270,7 +267,7 @@ def piola_linearized(FE, mu, lam, hessian: str = "full"):
     ``lam (J-1) dcof`` — are exactly what makes the corotated Hessian
     indefinite under strong compression (J < 1), i.e. at impact, where the
     measured 127^3 anatomy shows CG stagnating into its 1000-iteration cap
-    (docs/mpm_anatomy_127_none.json, frame 114).  With the SPD operator,
+    (frame 114 of the cone).  With the SPD operator,
     ``A = I + beta dt^2 H/m`` has spectrum >= 1, so CG is unconditionally
     convergent and the semi-implicit update cannot amplify ``b``.  P0 (the
     explicit force) is exact in both modes; only the implicit operator is

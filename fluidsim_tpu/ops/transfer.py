@@ -1,14 +1,14 @@
 """Particle <-> grid transfer operators (P2G scatter, G2P gather, FLIP delta).
 
-TPU-native reformulation of the reference's mutex-guarded per-particle
+Batched reformulation of the reference's mutex-guarded per-particle
 scatters (``fluid.cc:265-299`` ``p2gCatmullRom``, ``fluid.cc:843-882``
 ``PointList::interpolate``) and per-particle gathers (``fluid.cc:125-263``
 ``clampedCatmullRom`` / ``CatmullRomFLIP``): every particle touches the fixed
 3^3 stencil around ``round(p)``, so transfers become one batched
 scatter-add / gather over ``(P, 27)`` index arrays — no locks, no data races,
-fully jittable.  XLA lowers the scatter-add to a sorted segment reduction on
-TPU; a Pallas bucketed formulation can replace it later without changing this
-API (particle order is never relied upon).
+fully jittable.  This is the plain oracle the fused schedules
+(``ops.transfer_fast``, ``ops.apic``, ``ops.mpm_fast``) are tested against;
+particle order is never relied upon.
 """
 
 from __future__ import annotations
@@ -108,12 +108,6 @@ def normalize_velocity(weights, mom):
     """Weight-normalise the momentum grid (``fluid.cc:1131-1146``)."""
     w = weights[..., None]
     return jnp.where(w > 0, mom / jnp.where(w > 0, w, 1.0), mom)
-
-
-def normalize_velocity_cm(weights, mom_cm):
-    """``normalize_velocity`` for channel-major (3,N,N,N) momentum."""
-    w = weights[None]
-    return jnp.where(w > 0, mom_cm / jnp.where(w > 0, w, 1.0), mom_cm)
 
 
 def g2p_gather(pos, vc, bound: int, wall: int, kernel: str = "flip"):

@@ -1,7 +1,8 @@
-"""Chunked fused transfers for large single-chip grids.
+"""Chunked fused transfers for large single-device grids.
 
-The fused schedule's dense 128-lane tables cost ``N^3 x 512`` bytes each —
-~8.7 GB at 257^3, beyond single-chip HBM.  This variant processes the grid
+The fused schedule's dense 128-channel f32 tables cost ``N^3 x 512`` bytes
+each — ~8.7 GB at 257^3, more than a small device can hold next to the rest
+of the frame.  This variant processes the grid
 in ``n_chunks`` x-slabs inside a ``lax.fori_loop``: per slab it scatters only
 that slab's (sorted, hence contiguous) particles into a slab-local table and
 writes the slab's dense output, so peak memory drops by ~``n_chunks``x.

@@ -1,21 +1,18 @@
-"""Sorted, channel-fused particle transfers — the TPU fast path.
+"""Sorted, channel-fused particle transfers — FLIP's production path.
 
 The naive ``ops.transfer`` P2G issues a 27-point scatter-add with heavily
-colliding, unsorted indices; XLA TPU handles that ~6x slower than sorted
-scatters (measured: 297ms vs 48ms per 2M updates), and the 27-fold index
-fan-out multiplies it again (5.9s/frame at 129^3 / 2M particles).
+colliding, unsorted indices: 27 index fan-outs per particle into the grid.
 
 This module restructures the transfers around three observations:
 
-1. **Sorting pays for itself.**  Sorting 2M particles by their base cell id
-   costs ~33ms and makes every subsequent scatter AND gather ~6x faster
+1. **Sorting makes neighbours contiguous.**  Sorting the particles by their
+   base cell id puts every scatter AND gather on sorted indices
    (``indices_are_sorted=True``); particle order is semantically free.
 
 2. **All 27 stencil targets are constant shifts of the base cell**, so the
    entire P2G reduces to ONE sorted scatter of a 108-channel value vector
    (27 offsets x [w, w*vx, w*vy, w*vz]) into the base cell, followed by 27
    *dense* shifted adds — pure stencil arithmetic XLA vectorises fully.
-   (108 also pads perfectly to the 128-lane TPU tile.)
 
 3. **Every mask in the reference is a property of the target cell only**
    (in-box, not-solid, within bound-2: ``fluid.cc:288,870``; within-wall for

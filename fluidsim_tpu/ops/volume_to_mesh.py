@@ -3,7 +3,7 @@
 The reference's ``tools::volumeToMesh`` walks the sparse tree's leaf nodes
 with TBB, placing one vertex per sign-changing dual cell and emitting quads
 across sign-changing grid edges (dual contouring, adaptivity 0).  The
-TPU-native formulation is the same dual-contouring scheme (naive Surface
+dense formulation is the same dual-contouring scheme (naive Surface
 Nets) as a single dense jitted pass: every (N−1)³ dual cell computes its
 vertex as the mean of its cube-edge iso-crossings, and every grid edge with
 a sign change emits the quad of its four surrounding dual cells — all

@@ -5,7 +5,7 @@ The reference's ``fillWithSpheres`` greedily drops up to N non-overlapping
 spheres inside an iso-surface, each centered at the interior point with
 the largest remaining clearance (distance to surface AND to the spheres
 already placed), stopping below a minimum radius; ``ClosestSurfacePoint``
-answers closest-point queries against the iso-surface.  TPU-native: the
+answers closest-point queries against the iso-surface.  Here the
 interior clearance field is the (negated) SDF itself, updated after each
 placement with one fused ``min(d, |x−c|−r)`` pass — a fixed-trip
 ``lax.fori_loop`` of argmax+update steps, no ray sampling needed because

@@ -1,11 +1,11 @@
-"""Multi-chip FLIP: slab domain decomposition over a 1-D device mesh.
+"""Multi-device FLIP: slab domain decomposition over a 1-D device mesh.
 
 This is the scaling story the reference cannot tell (it is a single-process
 TBB program, SURVEY.md §2.4): the grid's x-axis is sharded into slabs over a
 ``jax.sharding.Mesh``, every step runs SPMD under ``shard_map``, and the only
-cross-chip traffic is
+cross-device traffic is
 
-* 2-cell halo exchange of grid fields (``ppermute`` over ICI) around the
+* 2-cell halo exchange of grid fields (``ppermute``) around the
   P2G scatter and G2P gather,
 * 1-cell halo exchange of the pressure field per CG iteration,
 * ``psum``/``pmax`` for CG dot products, outer-loop norms, and the CFL dt,
@@ -141,86 +141,6 @@ def _p2g_fused_local(pos_s, vel_s, flat_s, x0, nl, n, bound):
     return acc       # (nl+2W, n, n, 4): [w, w*vx, w*vy, w*vz]
 
 
-def _slab_layout(nl, n):
-    """Haloed kernel layout over the local (nl + 2W)-row x-slab."""
-    from fluidsim_tpu.models.flip import _auto_chunk
-    from fluidsim_tpu.ops.transfer_pallas import HaloLayout
-    return HaloLayout(n, nx=nl + 2 * W, t=_auto_chunk((n - 1) // 2))
-
-
-def _sort_local_h(pos, vel, alive, x0, nl, n, bound, lay):
-    """``_sort_local`` with *haloed slab* flat ids (``pallas_shift``
-    layout over the extended slab), via the same direct 8-operand
-    ``lax.sort`` the single-chip path uses (measured 437 -> ~150 ms at
-    257^3/15.7M rows vs the old key+iota sort + 3 row-gather permutes —
-    the gathers of wide payloads dominate at this row count, exactly as
-    the ``sort_by_cell_h`` schedule note records for 129^3).
-
-    Dead (padding) slots get the out-of-range id ``lay.ncells``, which
-    sorts them last AND puts them past the last ``build_chunks`` window
-    edge — so the fixed-capacity padding (cap_factor) costs sort time
-    only; the p2g/g2p kernels never touch those rows (at cap = 1.6x P
-    that removes ~37%% of the transfer kernels' chunk work)."""
-    from fluidsim_tpu.ops import pallas_shift as ps
-    base = cround(pos).astype(jnp.int32)
-    lx = jnp.clip(base[:, 0] + bound - x0 + W, 0, nl + 2 * W - 1)
-    gy = jnp.clip(base[:, 1] + bound, 0, n - 1)
-    gz = jnp.clip(base[:, 2] + bound, 0, n - 1)
-    flat = (lx + ps._XH) * lay.lwr + lay.lh + gy * n + gz
-    flat = jnp.where(alive, flat, lay.ncells)
-    out = jax.lax.sort(
-        [flat, pos[:, 0], pos[:, 1], pos[:, 2],
-         vel[:, 0], vel[:, 1], vel[:, 2], alive.astype(jnp.float32)],
-        num_keys=1)
-    return (jnp.stack(out[1:4], -1), jnp.stack(out[4:7], -1),
-            out[7] > 0.5, out[0])
-
-
-def _p2g_pallas_local(pos_s, vel_s, flat_h, nl, n, bound, lay, interpret):
-    """``_p2g_fused_local`` on the Pallas one-hot kernels: returns the raw
-    (nl + 2W, n, n, 4) slab sums (caller halo-reduces and masks).  Required
-    on real TPU: the XLA scatter emitter cannot compile the 108-channel
-    slab scatter at production shard sizes (see ops/mpm_pallas.py)."""
-    from fluidsim_tpu.ops import pallas_shift as ps
-    from fluidsim_tpu.ops import pallas_transfer as pt
-    from fluidsim_tpu.ops import transfer_pallas as tp
-    rows_x = nl + 2 * W
-    w27t = tp.masked_weights_cm(pos_s, bound, "flip")
-    wv, _ = pt.pack_cols(flat_h, w27t, vel_s, 2048)
-    d4 = pt.scatter_wv_fused(wv, flat_h, lay.xr, lay.lwr, n,
-                             interpret=interpret, cols=wv.shape[0],
-                             lh=lay.lh)
-    acc = d4[:, ps._XH:ps._XH + rows_x,
-             2 * lay.lh:2 * lay.lh + n * n].reshape(4, rows_x, n, n)
-    return jnp.moveaxis(acc, 0, -1), wv
-
-
-def _g2p_pallas_local(pos_s, flat_h, wv_rows, fields_ext, within_wall_ext,
-                      bound, n, lay, interpret):
-    """``_g2p_fused_local`` on the Pallas fused-table gather."""
-    from fluidsim_tpu.ops import pallas_shift as ps
-    from fluidsim_tpu.ops import pallas_transfer as pt
-    from fluidsim_tpu.ops import transfer_pallas as tp
-    rows_x = fields_ext.shape[0]
-    p = pos_s.shape[0]
-    c = fields_ext.shape[-1]
-    chans = [jnp.where(within_wall_ext, fields_ext[..., d],
-                       0.0).reshape(rows_x, n * n) for d in range(c)]
-    chans += [jnp.zeros((rows_x, n * n), fields_ext.dtype)] * (3 - c)
-    chans.append(within_wall_ext.astype(fields_ext.dtype).reshape(rows_x,
-                                                                  n * n))
-    fm = jnp.stack(chans, axis=0)
-    fm_hp = jnp.pad(fm, ((0, 0), (ps._XH, lay.xr - rows_x - ps._XH),
-                         (2 * lay.lh, lay.lwr - n * n)))
-    cols = tp.cols_of(wv_rows)
-    out = pt.gather_wv_fused(fm_hp, wv_rows, flat_h, n, interpret=interpret,
-                             cols=cols, lh=lay.lh)
-    num = out[:c, :p].T
-    den = out[3, :p]
-    safe = jnp.where(den != 0, den, 1.0)
-    return jnp.where(den[:, None] != 0, num / safe[:, None], 0.0)
-
-
 def _g2p_fused_local(pos_s, flat_s, fields_ext, within_wall_ext, bound):
     """Sharded analogue of ``transfer_fast.g2p_fused`` over an extended
     slab: 27 shifts pack neighbourhood tables, one sorted row-gather."""
@@ -243,124 +163,10 @@ def _g2p_fused_local(pos_s, flat_s, fields_ext, within_wall_ext, bound):
     return jnp.where(den[:, None] != 0, num / safe[:, None], 0.0)
 
 
-def _make_packed_slab_solve(params: FlipParams, adiag_ext, nl: int, n: int,
-                            scale, itp: bool):
-    """Per-shard PACKED-layout PCG — the single-chip Pallas solve kernels
-    (fused stencil apply + fused Chebyshev inner steps,
-    ``ops.pallas_stencil``) run on this shard's x-slab.
-
-    Layout: the ext slab (nl + 2 rows incl. 1-row ghosts) sits at packed
-    rows [8, 8+nl+2); CG vectors keep their ghost rows ZERO at all times so
-    the ``psum`` dot products never double-count, and every operator
-    application refreshes the ghosts transiently via ``ppermute`` (one
-    (L,)-row neighbour send per apply — the ICI traffic per CG iteration
-    is identical to the XLA slab path's 1-cell halo exchange).  ``adiag``
-    ghosts hold the REAL neighbour diagonal (exchanged once per solve), so
-    the kernels' ``adiag > 0`` masking reads true neighbour values across
-    shard boundaries and zeros beyond the domain ends (ppermute edge
-    fill), exactly like the wrap-around argument of the single-chip
-    layout."""
-    from fluidsim_tpu.ops import pallas_stencil as pst
-    from fluidsim_tpu.parallel.halo import _perm
-
-    cheb = params.preconditioner == "chebyshev"
-    mode_, bx, lblk = pst.pick_layout(n, cheb_fused=cheb)
-    if mode_ == "row":
-        l = -(-(n * n) // 128) * 128
-        lh = 0
-        apply_k = partial(pst.apply_laplacian_padded, n=n, bx=bx,
-                          interpret=itp)
-        step_k = partial(pst.cheb_step_padded, n=n, bx=bx, interpret=itp)
-    else:
-        lh = pst.lane_halo_s(n)
-        l = -(-(n * n) // lblk) * lblk + 2 * lh
-        apply_k = partial(pst.apply_laplacian_padded_lh, n=n, bx=bx,
-                          lblk=lblk, interpret=itp)
-        step_k = partial(pst.cheb_step_padded_lh, n=n, bx=bx, lblk=lblk,
-                         interpret=itp)
-    npx = -(-(8 + nl + 2 + bx + 8) // bx) * bx
-    gl, gr = 8, 9 + nl                       # ghost rows; interior [9, 9+nl)
-
-    def pad_ext(a):                          # (nl+2, n, n)
-        flat = a.reshape(nl + 2, n * n)
-        flat = jnp.pad(flat, ((0, 0), (lh, l - n * n - lh)))
-        return jnp.pad(flat, ((8, npx - (nl + 2) - 8), (0, 0)))
-
-    def pad_int(a):                          # (nl, n, n); ghosts zero
-        flat = a.reshape(nl, n * n)
-        flat = jnp.pad(flat, ((0, 0), (lh, l - n * n - lh)))
-        return jnp.pad(flat, ((9, npx - nl - 9), (0, 0)))
-
-    def unpad_int(q):
-        return q[9:9 + nl, lh:lh + n * n].reshape(nl, n, n)
-
-    ndev = jax.lax.axis_size(AX)
-
-    def set_ghosts(q):
-        from_left = jax.lax.ppermute(q[8 + nl], AX, _perm(ndev, 1))
-        from_right = jax.lax.ppermute(q[9], AX, _perm(ndev, -1))
-        return q.at[gl].set(from_left).at[gr].set(from_right)
-
-    def zero_ghosts(q):
-        z = jnp.zeros((q.shape[1],), q.dtype)
-        return q.at[gl].set(z).at[gr].set(z)
-
-    ad_p = pad_ext(adiag_ext)
-    safe_ad = jnp.where(ad_p > 0, ad_p, 1.0)
-    jac = lambda r: jnp.where(ad_p > 0, r / safe_ad, 0.0)
-
-    def apply_a(p):
-        return zero_ghosts(apply_k(set_ghosts(p), ad_p, scale))
-
-    if cheb:
-        a_, b_ = 2.0 / params.cheb_ratio, 2.0
-        theta = 0.5 * (b_ + a_)
-        delta = 0.5 * (b_ - a_)
-        sigma1 = theta / delta
-
-        def precond(r):
-            rho = 1.0 / sigma1
-            d = jac(r) * (1.0 / theta)
-            z = d
-            for _ in range(params.cheb_degree - 1):
-                rho_new = 1.0 / (2.0 * sigma1 - rho)
-                d, z = step_k(set_ghosts(z), ad_p, r, d, scale,
-                              rho_new * rho, 2.0 * rho_new / delta)
-                d = zero_ghosts(d)
-                z = zero_ghosts(z)
-                rho = rho_new
-            return z
-    else:
-        precond = jac
-
-    def psum(x):
-        return jax.lax.psum(x, AX)
-
-    def solve(b, x0):
-        res = pcg(apply_a, pad_int(b), x0=pad_int(x0), precond=precond,
-                  rtol=params.pcg_rtol or auto_pcg_rtol(n),
-                  maxiter=params.pcg_maxiter, reduce_fn=psum)
-        return unpad_int(res.x), res.iters
-
-    return solve
-
-
-def _digest(*arrays):
-    """Scalar that depends on every element computed so far (profiling)."""
-    return sum(jnp.sum(a.astype(jnp.float32)) for a in arrays)
-
-
 def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
                   solid_full, solid_pad_ext, state: ShardedFlipState,
-                  upto: str | None = None, tail_insert: bool = True):
-    """SPMD body: runs per device under shard_map.
-
-    ``upto``: profiling hook — stop after the named phase and return a
-    scalar digest of everything computed to that point, so cumulative
-    prefixes of the REAL step can be jitted separately and diffed into a
-    per-phase ledger (``scripts/profile_sharded.py``).  Checkpoints:
-    ``sort``, ``p2g``, ``reduce``, ``setup``, ``pass1``, ``project``,
-    ``g2p``, ``advect``; ``None`` runs the full step."""
+                  tail_insert: bool = True):
+    """SPMD body: runs per device under shard_map."""
     B, wall, n = params.bound, params.wall, 2 * params.bound + 1
     dx, rho = params.dx, params.rho
     g = jnp.asarray(params.gravity, state.pos.dtype)
@@ -379,29 +185,14 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
     solid_ext1 = solid_ext[W - 1:nl + W + 1]                 # halo-1 view
 
     # ---- P2G (fluid.cc:1384) ----
-    use_pallas = bool(params.pallas_transfer)
     if params.fast_transfer:
         # fused path: sort by ext-slab cell, one 108-ch scatter + shifts.
         # With the standard wall geometry (wall == bound-2, the only layout
         # the sharded solver supports) the within-(B-2) and occupancy masks
         # both collapse to ~solid, so occupancy shares the weight field.
-        if use_pallas:
-            lay = _slab_layout(nl, n)
-            itp = params.pallas_interpret
-            pos, vel, alive, flat_ext = _sort_local_h(pos, vel, alive, x0,
-                                                      nl, n, B, lay)
-            if upto == "sort":
-                return _digest(pos, vel, flat_ext)
-            acc, wv_rows = _p2g_pallas_local(pos, vel, flat_ext, nl, n, B,
-                                             lay, itp)
-        else:
-            pos, vel, alive, flat_ext = _sort_local(pos, vel, alive, x0, nl,
-                                                    n, B)
-            if upto == "sort":
-                return _digest(pos, vel, flat_ext)
-            acc = _p2g_fused_local(pos, vel, flat_ext, x0, nl, n, B)
-        if upto == "p2g":
-            return _digest(acc)
+        pos, vel, alive, flat_ext = _sort_local(pos, vel, alive, x0, nl,
+                                                n, B)
+        acc = _p2g_fused_local(pos, vel, flat_ext, x0, nl, n, B)
         red = jnp.stack([halo_reduce(acc[..., c], W, AX) for c in range(4)],
                         axis=-1)
         ns_loc = (~solid_loc)[..., None]
@@ -435,8 +226,6 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
                                          x0, nl, n, W), W, AX)
     fluid = (occ > 0) & (~solid_loc)
     velb = velg
-    if upto == "reduce":
-        return _digest(velg, occ, fluid)
 
     # ---- pressure projection do-while (fluid.cc:1457-1484) ----
     adiag_scale = dt / (rho * dx * dx)
@@ -447,31 +236,23 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         count = count + shift_to_plus(ns, d) + shift_to_minus(ns, d)
     adiag = jnp.where(fluid, adiag_scale * count[1:-1], 0.0)
 
-    if use_pallas:
-        # packed per-shard solve on the single-chip Pallas kernels (fused
-        # stencil apply + fused Chebyshev steps); ICI traffic per CG
-        # iteration is the same 1-row ghost exchange as the XLA path
-        solve_packed = _make_packed_slab_solve(
-            params, exchange_halo(adiag, 1, AX), nl, n, adiag_scale,
-            params.pallas_interpret)
-    else:
-        def apply_a(p):
-            p_ext = exchange_halo(jnp.where(fluid, p, 0.0), 1, AX)
-            fl_ext = exchange_halo(fluid, 1, AX)
-            ad_ext = exchange_halo(adiag, 1, AX)
-            out = pr.apply_laplacian(p_ext, ad_ext, fl_ext, dt, rho, dx)
-            return out[1:-1]
+    def apply_a(p):
+        p_ext = exchange_halo(jnp.where(fluid, p, 0.0), 1, AX)
+        fl_ext = exchange_halo(fluid, 1, AX)
+        ad_ext = exchange_halo(adiag, 1, AX)
+        out = pr.apply_laplacian(p_ext, ad_ext, fl_ext, dt, rho, dx)
+        return out[1:-1]
 
-        precond = jacobi_preconditioner(adiag, mask=fluid)
-        if params.preconditioner == "chebyshev":
-            # Polynomial preconditioning is even better multi-chip than
-            # single: the d+1 in-precond applies only exchange 1-cell halos
-            # over ICI, while cutting ~(d+1)x the number of CG iterations —
-            # i.e. the number of GLOBAL psum dot-product rounds per solve.
-            from fluidsim_tpu.ops.pcg import chebyshev_preconditioner
-            precond = chebyshev_preconditioner(apply_a, precond,
-                                               degree=params.cheb_degree,
-                                               ratio=params.cheb_ratio)
+    precond = jacobi_preconditioner(adiag, mask=fluid)
+    if params.preconditioner == "chebyshev":
+        # Polynomial preconditioning is even better multi-device than
+        # single: the d+1 in-precond applies only exchange 1-cell halos,
+        # while cutting ~(d+1)x the number of CG iterations — i.e. the
+        # number of GLOBAL psum dot-product rounds per solve.
+        from fluidsim_tpu.ops.pcg import chebyshev_preconditioner
+        precond = chebyshev_preconditioner(apply_a, precond,
+                                           degree=params.cheb_degree,
+                                           ratio=params.cheb_ratio)
 
     def norm(x):
         return jnp.sqrt(psum(jnp.sum((x * x).astype(jnp.float32))))
@@ -483,13 +264,10 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         rhs = pr.set_rhs(vg_ext, fluid_ext, solid_ext1, g, dt, dx)[1:-1]
         rhs_ext = exchange_halo(rhs, 1, AX)
         b = pr.divergence_rhs(vg_ext, rhs_ext, fluid_ext, solid_ext1, dx)[1:-1]
-        if use_pallas:
-            x, iters = solve_packed(b, px0)
-        else:
-            res = pcg(apply_a, b, x0=px0, precond=precond,
-                      rtol=params.pcg_rtol or auto_pcg_rtol(n),
-                      maxiter=params.pcg_maxiter, reduce_fn=psum)
-            x, iters = res.x, res.iters
+        res = pcg(apply_a, b, x0=px0, precond=precond,
+                  rtol=params.pcg_rtol or auto_pcg_rtol(n),
+                  maxiter=params.pcg_maxiter, reduce_fn=psum)
+        x, iters = res.x, res.iters
         p_ext = exchange_halo(jnp.where(fluid, x, 0.0), 1, AX)
         vg2 = pr.vel_update(vg_ext, p_ext, fluid_ext, solid_ext1, g, dt,
                             rho, dx)[1:-1]
@@ -516,13 +294,9 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
 
     carry = body((velg, jnp.inf, jnp.zeros((), jnp.int32),
                   jnp.zeros((), jnp.int32), p_prev))
-    if upto == "pass1":
-        return _digest(carry[0], carry[4]) + carry[1] + carry[3]
     velg, err, n_outer, cg_iters, pressure = jax.lax.while_loop(
         lambda c: (c[1] > params.outer_tol) & (c[2] < params.max_outer),
         body, carry)
-    if upto == "project":
-        return _digest(velg, pressure) + err + cg_iters
 
     # ---- FLIP delta gather (fluid.cc:1490, CatmullRomFLIP 210-263) ----
     # cell-centre averaging is linear, so the delta field needs ONE halo
@@ -537,13 +311,7 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         cy = np.abs(np.arange(-B, B + 1)) <= wall
         wall_yz = jnp.asarray(cy[:, None] & cy[None, :])
         within_ext = (jnp.abs(gi) <= wall) & wall_yz[None, :, :]
-        if use_pallas:
-            delta = _g2p_pallas_local(pos, flat_ext, wv_rows,
-                                      dvc, within_ext, B, n,
-                                      lay, itp)
-        else:
-            delta = _g2p_fused_local(pos, flat_ext, dvc,
-                                     within_ext, B)
+        delta = _g2p_fused_local(pos, flat_ext, dvc, within_ext, B)
     else:
         within_wall = jnp.all(jnp.abs(cells) <= wall, axis=-1)
         gmask = inb & within_wall
@@ -556,8 +324,6 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
                           num / jnp.where(den[:, None] != 0, den[:, None], 1.0),
                           0.0)
     vel = jnp.where(alive[:, None], vel + delta, 0.0)
-    if upto == "g2p":
-        return _digest(vel)
 
     # ---- CFL (pmax over shards) ----
     speed = jnp.sqrt(jnp.sum(vel * vel, axis=-1))
@@ -573,16 +339,12 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         analytic_wall=params.wall if params.walls_only_solid else None)
     pos = jnp.where(alive[:, None], pos_new, SENTINEL)
     vel = jnp.where(alive[:, None], vel_new, 0.0)
-    if upto == "advect":
-        return _digest(pos, vel) + dt_new
 
     # ---- nearest-neighbour migration ----
     owner = jnp.clip((cround(pos[:, 0]).astype(jnp.int32) + B) // nl, 0,
                      ndev - 1)
     send_left = alive & (owner == me - 1)
     send_right = alive & (owner == me + 1)
-    if upto == "owner":
-        return _digest(send_left, send_right)
     payload = jnp.concatenate([pos, vel], axis=-1)
     if params.fast_transfer:
         # Sorted-band migration.  The step-start sort leaves this shard's
@@ -593,9 +355,7 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         # right-senders in the last F rows of the alive prefix
         # [0, A0).  Ship the raw band slices + sender masks and insert
         # the arrivals straight into the dead tail [A0, cap): total work
-        # is O(F), no full-P cumsum/argsort/scatter (those lower to
-        # 2.2 s + 0.5 s at 15.7M rows on TPU,
-        # docs/sharded_anatomy_r4.json pre-fix ledger).
+        # is O(F), no full-P cumsum/argsort/scatter.
         F = min(mig_cap, cap)
         A0 = jnp.sum(alive.astype(jnp.int32))      # alive prefix length
         band_l = payload[:F]
@@ -609,8 +369,6 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         # dropped — detected exactly by full-vs-band mask counts
         dropped = (jnp.sum(send_left) - jnp.sum(mask_l)
                    + jnp.sum(send_right) - jnp.sum(mask_r))
-        if upto == "migrate":
-            return _digest(incoming, valid) + dropped
         moved = send_left | send_right
         alive = alive & ~moved
         pos = jnp.where(alive[:, None], pos, SENTINEL)
@@ -618,10 +376,9 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         if tail_insert:
             # contiguous tail insert: rows [A0, A0+2F) are dead (the dead
             # tail starts at A0; removal above only adds holes BELOW A0),
-            # so one dynamic_update_slice per array lands every arrival —
-            # measured FREE where the 2F-row scatter form costs ~87 ms
-            # per column at 15.7M rows (XLA TPU scatter is
-            # per-update-row-bound).  Invalid rows write the dead pattern.
+            # so one dynamic_update_slice per array lands every arrival
+            # (a copy, where the 2F-row scatter form is one indexed write
+            # per row).  Invalid rows write the dead pattern.
             # Interleaved alive flags are fine: the next step's sort
             # restores the alive-prefix invariant before anyone relies on
             # it.  On overflow (A0 > cap - 2F) the clamped write clobbers
@@ -650,8 +407,6 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         # compaction pack + free-slot pairing over the full array
         incoming, valid, dropped = migrate_neighbors(
             payload, send_left, send_right, mig_cap, AX)
-        if upto == "migrate":
-            return _digest(incoming, valid) + dropped
         moved = send_left | send_right
         alive = alive & ~moved
         pos = jnp.where(alive[:, None], pos, SENTINEL)
@@ -671,8 +426,6 @@ def _sharded_step(params: FlipParams, nl: int, cap: int, mig_cap: int,
         vel = vel.at[tgt].set(incoming[:, 3:], mode="drop")
         alive = alive.at[tgt].set(True, mode="drop")
         lost = psum(dropped + jnp.sum(valid & (free_idx >= cap)))
-    if upto == "insert":
-        return _digest(pos, vel, alive) + lost
 
     new_state = ShardedFlipState(pos=pos, vel=vel, alive=alive, dt=dt_new,
                                  t=state.t + dt_new, frame=state.frame + 1,
@@ -736,9 +489,9 @@ class LostParticleMonitor:
 
 
 class ShardedFlipSim(LostParticleMonitor):
-    """Host driver for the multi-chip FLIP solver.
+    """Host driver for the multi-device FLIP solver.
 
-    Works on any 1-D mesh: real TPU chips, or virtual CPU devices via
+    Works on any 1-D mesh: GPUs, or virtual CPU devices via
     ``--xla_force_host_platform_device_count`` (how CI exercises this).
     """
 
@@ -759,18 +512,6 @@ class ShardedFlipSim(LostParticleMonitor):
                 and np.array_equal(np.asarray(scene.solid),
                                    scene.spec.wall_mask())):
             params = dataclasses.replace(params, walls_only_solid=True)
-        if params.pallas_transfer is None:
-            # per-shard XLA scatters hit the TPU scatter-emitter compile
-            # wall at production slab sizes; route through the Pallas slab
-            # kernels on real backends (lane halo grows with n, as
-            # single-chip).  Decide from the MESH's devices, not the
-            # global default backend: a virtual-CPU mesh inside a
-            # TPU-default process (the dryrun / mixed-session case) must
-            # take the XLA path (compiled Pallas is TPU-only).
-            auto = (params.fast_transfer
-                    and mesh.devices.flat[0].platform != "cpu"
-                    and scene.spec.n <= 511)
-            params = dataclasses.replace(params, pallas_transfer=auto)
         self.scene, self.params, self.mesh = scene, params, mesh
         ndev = mesh.devices.size
         n = scene.spec.n
@@ -781,8 +522,8 @@ class ShardedFlipSim(LostParticleMonitor):
         solid_pad_ext = np.zeros((npad + 2 * W, n, n), bool)
         solid_pad_ext[W:W + n] = solid_np
 
-        pos, vel = seeder_positions = seed_particles(scene, seed=seed,
-                                                     dtype=np.dtype(dtype).name)
+        pos, vel = seed_particles(scene, seed=seed,
+                                  dtype=np.dtype(dtype).name)
         owner = np.clip((np.floor(np.abs(pos[:, 0]) + 0.5)
                          * np.sign(pos[:, 0]) + scene.spec.bound).astype(int)
                         // self.nl, 0, ndev - 1)
@@ -792,10 +533,9 @@ class ShardedFlipSim(LostParticleMonitor):
         # models/flip.py) bounds every particle's move to <= 1 cell/frame,
         # so only particles in a slab's two edge rows can change owner.
         # Default = 4x the uniform-density edge-band population (plus the
-        # ``lost`` counter as the overflow detector); the old default of
-        # 5% of cap was ~10x oversized and made the fixed-capacity
-        # pack/insert machinery the most expensive phase of the sharded
-        # step (docs/sharded_anatomy.json).
+        # ``lost`` counter as the overflow detector); 5% of cap is ~10x
+        # oversized and makes the fixed-capacity pack/insert machinery
+        # the most expensive phase of the sharded step.
         if mig_frac is None:
             self.mig_cap = max(64, min(self.cap,
                                        8 * (self.cap // max(self.nl, 1))))
@@ -803,9 +543,8 @@ class ShardedFlipSim(LostParticleMonitor):
             self.mig_cap = max(64, int(self.cap * mig_frac))
         # Insert strategy (static): arrivals go into the contiguous dead
         # tail [A0, A0+2F) via dynamic_update_slice when the capacity
-        # slack can always hold the 2F-row block (measured free; the
-        # scatter form costs ~87 ms/column at 15.7M rows on TPU) —
-        # otherwise (tiny caps) the paired-scatter fallback.
+        # slack can always hold the 2F-row block — otherwise (tiny caps)
+        # the paired-scatter fallback.
         self.tail_insert = (2 * min(self.mig_cap, self.cap)
                             <= self.cap - int(counts.max() * 1.15))
 
@@ -843,13 +582,10 @@ class ShardedFlipSim(LostParticleMonitor):
         metric_specs["occupancy"] = P(AX)
         body = partial(_sharded_step, params, self.nl, self.cap, self.mig_cap,
                        tail_insert=self.tail_insert)
-        # check_vma=False when pallas kernels run inside the shard: pallas
-        # out_shapes carry no varying-manual-axes info
         self._step = jax.jit(shard_map(
             body, mesh=mesh,
             in_specs=(P(), P(), state_specs),
-            out_specs=(state_specs, metric_specs),
-            check_vma=not params.pallas_transfer))
+            out_specs=(state_specs, metric_specs)))
         self._init_lost_monitor()
 
     @property

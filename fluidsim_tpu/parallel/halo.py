@@ -3,7 +3,8 @@
 The reference is strictly single-machine shared memory (SURVEY.md §2.4); its
 spatial-scaling analog here is slab decomposition of the grid's x-axis over a
 ``jax.sharding.Mesh``, with 1- or 2-cell halos exchanged via
-``jax.lax.ppermute`` — which XLA lowers to neighbour sends over ICI.  All
+``jax.lax.ppermute`` — which XLA lowers to neighbour sends between devices
+(NCCL over NVLink on a multi-GPU host).  All
 helpers are written to run *inside* ``shard_map`` over a named mesh axis.
 
 Boundary devices exchange with nobody; ``ppermute`` fills missing links with
@@ -62,7 +63,7 @@ def migrate_edge_bands(band_l, mask_l, band_r, mask_r, axis: str):
     in the last ``F`` rows of the alive prefix — so migration can ship the
     raw band slices with their sender masks and skip compaction entirely.
     This replaces the full-P cumsum/scatter pack of ``migrate_neighbors``,
-    which costs seconds at ~16M rows on TPU (docs/sharded_anatomy_r4.json).
+    whose work grows with every row of the shard, with work of O(F).
 
     ``band_l``/``mask_l`` go to the LEFT neighbour, ``band_r``/``mask_r``
     to the RIGHT.  Returns ``(incoming (2F, D), valid (2F,))`` — rows from
@@ -93,10 +94,9 @@ def migrate_neighbors(payload, send_left, send_right, capacity: int, axis: str):
     n = jax.lax.axis_size(axis)
 
     def pack(mask):
-        # cumsum-rank compaction: one scan + one masked scatter.  The
-        # obvious jnp.nonzero(size=capacity) pack costs ~150 ms at 15.7M
-        # rows on TPU (docs/sharded_anatomy.json migrate row); this form
-        # is bandwidth-bound (~2 passes over the mask/payload).
+        # cumsum-rank compaction: one scan + one masked scatter, ~2
+        # passes over the mask/payload (the jnp.nonzero(size=capacity)
+        # form is a sort-like pass).
         rank = jnp.cumsum(mask) - 1                      # (P,) int
         tgt = jnp.where(mask & (rank < capacity), rank, capacity)
         rows = jnp.zeros((capacity, payload.shape[1]),

@@ -3,7 +3,7 @@
 // A faithful single-process C++ port of the reference FLIP pipeline
 // (Aakash1312/Fluid-Simulation fluid.cc) scaled to an arbitrary grid size, as
 // required by BASELINE.md ("porting the reference scene config up to 128^3
-// and timing it as the denominator").  Same per-frame work as the TPU path:
+// and timing it as the denominator").  Same per-frame work as the JAX path:
 //   quadratic-support spline P2G scatter -> occupancy -> pressure do-while
 //   (rhs/divergence/7-point Laplacian, Jacobi-PCG) -> FLIP gather -> CFL ->
 //   advect with solid bounce.

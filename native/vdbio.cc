@@ -2,7 +2,7 @@
 //
 // The reference's I/O layer is C++ (openvdb/io/: Archive, GridDescriptor,
 // Compression, and the unused async io::Queue, openvdb/io/Queue.h:248).
-// This is the TPU framework's native equivalent: it encodes dense float
+// This is the framework's native equivalent: it encodes dense float
 // grids into OpenVDB-4.0.2 archives (byte-identical to the Python
 // fluidsim_tpu.io.vdb writer, which documents the format with file:line
 // references) and ships a background writer thread so per-frame exports

@@ -4,7 +4,7 @@ the framework's equivalent of the reference's showcased
 ``fluid.cc:1176,1348-1357``), with the parity-sheet camera.
 
 Usage:  python -m scripts.drop_movie [--frames 500] [--every 4]
-Needs the real TPU (reference scale, ~690k particles).
+Needs a GPU (reference scale, ~690k particles).
 """
 
 import argparse

@@ -1,12 +1,12 @@
-"""127^3 MPM frame anatomy (VERDICT r2 item 6): per-frame CG iterations,
+"""127^3 MPM frame anatomy: per-frame CG iterations,
 dt, KE and wall time across fall / impact / settle, so the impact-phase
 engineering (preconditioning, warm starts, tolerance schedule) is driven
 by a measured profile instead of the bench-vs-soak discrepancy.
 
-Writes docs/mpm_anatomy_127.json: per-frame rows + phase summary.
+Writes mpm_anatomy_127.json: per-frame rows + phase summary.
 
 Usage: python scripts/mpm_anatomy.py [--bound 63] [--frames 500]
-       [--out docs/mpm_anatomy_127.json] [--precond jacobi|none]
+       [--out mpm_anatomy_127.json] [--precond jacobi|none]
 """
 
 import argparse
@@ -27,8 +27,7 @@ def main():
     ap.add_argument("--frames", type=int, default=500)
     ap.add_argument("--chunk", type=int, default=10,
                     help="frames per device dispatch (wall per chunk)")
-    ap.add_argument("--out", default=os.path.join(HERE, "docs",
-                                                  "mpm_anatomy_127.json"))
+    ap.add_argument("--out", default="mpm_anatomy_127.json")
     ap.add_argument("--precond", default=None, choices=[None, "none",
                                                         "jacobi"],
                     help="override MpmParams.precond")

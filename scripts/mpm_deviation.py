@@ -1,8 +1,8 @@
-"""Field-level SPD-vs-full-Hessian trajectory deviation (VERDICT r3 #6).
+"""Field-level SPD-vs-full-Hessian trajectory deviation.
 
 ``hessian="spd"`` (the Gauss-Newton operator that fixed the 127^3 impact
-stall) changes the implicit integrator for every scaled MPM scene, and
-round 3 only bounded the deviation through one scalar (KE).  This script
+stall) changes the implicit integrator for every scaled MPM scene, and a
+single scalar (KE) bounds the deviation only loosely.  This script
 runs the SAME scene with ``hessian="full"`` (the reference's exact
 operator, ``deformHeader.h:241-272``) and ``hessian="spd"`` and compares
 field-level observables at checkpoints:

@@ -10,7 +10,7 @@ cube, mt19937(0) bit-compatible seeding — ``compat/scatter.py``), same
 frame indices, sphere-traced particle level set.
 
 Usage:  python -m scripts.parity_renders [--out docs/images]
-Needs the real TPU (reference scale, ~690k particles).
+Needs a GPU (reference scale, ~690k particles).
 """
 
 import argparse

@@ -32,7 +32,7 @@ def main():
     from fluidsim_tpu.compat.scatter import seed_particles_compat
 
     sim = FlipSim("water_cube_drop", seeder=seed_particles_compat)
-    print(f"# {sim.num_particles} particles, pallas={sim.params.pallas_transfer}")
+    print(f"# {sim.num_particles} particles")
 
     t0 = time.time()
     kes, dts, errs, outers = [], [], [], []

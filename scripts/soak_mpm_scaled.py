@@ -1,4 +1,4 @@
-"""Scaled MPM cone soak (VERDICT r4 #1b): the full 500-frame workload at
+"""Scaled MPM cone soak: the full 500-frame workload at
 a scaled grid (default 255^3 / ~3.9M particles — the shape the bench
 ladder publishes), with the KE-decay oracle and a per-phase wall ledger.
 
@@ -9,7 +9,7 @@ impact, then decay — and every particle must stay finite and confined.
 
 Usage:
   python scripts/soak_mpm_scaled.py [--bound 127] [--frames 500]
-      [--chunk 10] [--json docs/mpm_soak_<n>.json]
+      [--chunk 10] [--json mpm_soak_<n>.json]
 """
 
 import argparse
@@ -28,13 +28,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--bound", type=int, default=127)
     ap.add_argument("--frames", type=int, default=500)
-    # chunk=0 (auto): per-frame stepping past ~192^3 — the lax.scan-
-    # wrapped steps(k) program reproducibly crashed the TPU worker
-    # ("kernel fault") in the 255^3 impact phase on two runs, while
-    # per-frame stepping completed the identical frames cleanly (same
-    # scoped-VMEM stack mechanism the FLIP stencil_bx_cap note records
-    # for scan-wrapped programs); at >1 s/frame the per-dispatch cost
-    # is ~2% anyway.
+    # chunk=0 (auto): per-frame stepping past ~192^3, where a frame is
+    # long enough that the per-dispatch cost is small; the scan-wrapped
+    # steps(k) program at 255^3 through impact is untested on the GPU.
     ap.add_argument("--chunk", type=int, default=0)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()

@@ -142,7 +142,7 @@ def test_exporter_ref_topology_dense_active(tmp_path):
 
 
 def test_lost_particle_monitor_warns_and_strict_raises(monkeypatch):
-    """Silent migration drops must surface (ADVICE r4): warn on lost>0
+    """Silent migration drops must surface: warn on lost>0
     (checked one step later, off the dispatch path), raise under
     FLUIDSIM_STRICT_MIGRATION=1."""
     from fluidsim_tpu.parallel.flip_sharded import LostParticleMonitor

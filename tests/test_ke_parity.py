@@ -15,28 +15,29 @@ import subprocess
 import numpy as np
 import pytest
 
+from fluidsim_tpu.io.native import NATIVE_DIR, build_native
 from fluidsim_tpu.models.flip import FlipSim
 from fluidsim_tpu.scenes import get_scene
 from fluidsim_tpu.seeding import seed_particles
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF = os.path.join(HERE, "native", "ref_cpu")
-REF_MPM = os.path.join(HERE, "native", "ref_mpm")
+
+def _native_tool(name):
+    if not build_native(name):
+        pytest.skip(f"{name} not buildable (make -C native {name})")
+    return os.path.join(NATIVE_DIR, name)
 
 
-def _build(path=REF):
-    if not os.path.exists(path):
-        try:
-            subprocess.check_call(
-                ["make", "-C", os.path.dirname(path), os.path.basename(path)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-        except (OSError, subprocess.CalledProcessError):
-            return False
-    return os.path.exists(path)
+@pytest.fixture
+def ref_cpu():
+    return _native_tool("ref_cpu")
 
 
-@pytest.mark.skipif(not _build(), reason="ref_cpu not buildable")
-def test_ke_trace_matches_cpp_port(tmp_path):
+@pytest.fixture
+def ref_mpm():
+    return _native_tool("ref_mpm")
+
+
+def test_ke_trace_matches_cpp_port(tmp_path, ref_cpu):
     bound, density, frames = 16, 4.0, 25
     scene = get_scene("water_cube_drop", bound=bound, density=density)
     pos, vel = seed_particles(scene, seed=0)
@@ -45,7 +46,7 @@ def test_ke_trace_matches_cpp_port(tmp_path):
     np.ascontiguousarray(pos, np.float32).tofile(pfile)
 
     out = subprocess.check_output(
-        [REF, str(bound), str(density), str(frames), pfile], text=True)
+        [ref_cpu, str(bound), str(density), str(frames), pfile], text=True)
     cpp = [json.loads(l) for l in out.strip().splitlines()]
     assert len(cpp) == frames
 
@@ -74,8 +75,7 @@ def test_ke_trace_matches_cpp_port(tmp_path):
     assert c > 0.99, f"KE traces decorrelated: r={c}"
 
 
-@pytest.mark.skipif(not _build(REF_MPM), reason="ref_mpm not buildable")
-def test_mpm_ke_trace_matches_cpp_port(tmp_path):
+def test_mpm_ke_trace_matches_cpp_port(tmp_path, ref_mpm):
     """MPM counterpart (``native/ref_mpm.cc``) on the headline cone scene.
 
     MPM parity is *much* tighter than FLIP's because the frame has a single
@@ -92,7 +92,7 @@ def test_mpm_ke_trace_matches_cpp_port(tmp_path):
     np.ascontiguousarray(pos).tofile(pfile)
 
     out = subprocess.check_output(
-        [REF_MPM, "15", "100", str(frames), pfile], text=True)
+        [ref_mpm, "15", "100", str(frames), pfile], text=True)
     cpp = [json.loads(l) for l in out.strip().splitlines()
            if l.startswith("{")]
     assert len(cpp) == frames

@@ -159,7 +159,7 @@ def test_spd_hessian_positive_semidefinite():
     """The "spd" implicit operator (ops/svd3.py:piola_linearized) must give
     w^T (A - I) w >= 0 for arbitrary w at a DEFORMED state — the property
     the full corotated Hessian loses under compression (the measured cause
-    of the impact-frame CG stagnation, docs/mpm_anatomy_127_none.json)."""
+    of the impact-frame CG stagnation of the 127^3 cone)."""
     import dataclasses
 
     import jax

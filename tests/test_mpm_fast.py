@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from fluidsim_tpu.models.mpm import MpmSim, MpmParams
 from fluidsim_tpu.scenes import get_scene
@@ -43,3 +44,16 @@ def test_mpm_fast_runs_longer():
         m = sim.step()
     assert np.isfinite(float(m["kinetic_energy"]))
     assert float(m["min_det_fp"]) > 0.3
+
+
+@pytest.mark.parametrize("bound", [15, 20, 63])
+def test_default_transfer_by_bound(bound):
+    """At every scale the default is the naive transfer with particles left
+    in place (the fastest schedule on the H100 at 31^3 and 127^3): one
+    frame moves each particle less than a cell, so row i still holds
+    particle i (a per-frame sort would permute the rows)."""
+    sim = MpmSim("mpm_cone", bound=bound, density=4.0)
+    assert sim.params.fast_transfer is False
+    pos0 = np.asarray(sim.state.pos)
+    sim.step()
+    assert np.abs(np.asarray(sim.state.pos) - pos0).max() < 1.0

@@ -48,33 +48,16 @@ def test_sharded_mpm_conserves_particles():
     assert np.isfinite(float(m["kinetic_energy"]))
 
 
-def test_sharded_mpm_pallas_matches_single_chip():
-    """The Pallas slab-kernel MPM path (interpret mode on the CPU mesh)
-    must reproduce the single-chip step like the XLA slab path does."""
-    from fluidsim_tpu.models.mpm import MpmParams
-
+@pytest.mark.parametrize("ndev", [2, 3])
+def test_sharded_mpm_matches_single_chip_slab_widths(ndev):
     scene = get_scene("mpm_cone", density=100.0)
     single = MpmSim(scene)
-    params = MpmParams(pallas_transfer=True, pallas_interpret=True)
-    sharded = ShardedMpmSim(scene, params=params, mesh=_mesh(4))
-    assert sharded.params.pallas_transfer
+    sharded = ShardedMpmSim(scene, mesh=_mesh(ndev))
     assert sharded.num_particles == single.num_particles
-
-    for i in range(3):
+    for _ in range(3):
         ms = single.step()
         mp_ = sharded.step()
         np.testing.assert_allclose(float(mp_["kinetic_energy"]),
                                    float(ms["kinetic_energy"]), rtol=3e-3)
-        np.testing.assert_allclose(float(mp_["dt"]), float(ms["dt"]),
-                                   rtol=1e-3)
         assert int(mp_["num_active_cells"]) == int(ms["num_active_cells"])
         assert int(mp_["lost"]) == 0
-
-    alive = np.asarray(sharded.state.alive)
-    fe = np.asarray(sharded.state.FE)[alive]
-    assert np.isfinite(fe).all()
-    pos_s = np.asarray(single.state.pos)
-    pos_p = np.asarray(sharded.state.pos)[alive]
-    assert pos_p.shape == pos_s.shape
-    np.testing.assert_allclose(pos_p[np.lexsort(pos_p.T)],
-                               pos_s[np.lexsort(pos_s.T)], atol=5e-3)

@@ -123,74 +123,3 @@ def test_flip_with_chebyshev_matches_jacobi():
         mb = b.step()
         np.testing.assert_allclose(float(ma["kinetic_energy"]),
                                    float(mb["kinetic_energy"]), rtol=2e-3)
-
-
-def test_packed_mg_preconditioner_symmetric_and_converges():
-    """Packed-smoother V-cycle (fine sweeps on the Pallas apply in the
-    (Npx, L) layout) is symmetric and cuts iterations like the dense one."""
-    from jax.experimental.pallas import tpu as pltpu
-    from fluidsim_tpu.ops.pallas_stencil import (apply_laplacian_padded,
-                                                 pad_x, unpad_x)
-    from fluidsim_tpu.ops.multigrid import mg_preconditioner_packed
-
-    spec, fluid, solid, adiag, apply_a, (dt, rho, dx) = _system()
-    n = spec.n
-    scale = dt / (rho * dx * dx)
-    ad_p = pad_x(adiag)
-    apply_p = lambda q: apply_laplacian_padded(q, ad_p, scale, n)
-
-    rng = np.random.default_rng(5)
-    with pltpu.force_tpu_interpret_mode():
-        mg = mg_preconditioner_packed(fluid, solid, dt, rho, dx,
-                                      pad_x, lambda q: unpad_x(q, n),
-                                      apply_p, ad_p)
-        z1 = pad_x(jnp.where(fluid, jnp.asarray(
-            rng.normal(size=spec.shape), jnp.float32), 0))
-        z2 = pad_x(jnp.where(fluid, jnp.asarray(
-            rng.normal(size=spec.shape), jnp.float32), 0))
-        a1 = float(jnp.sum(mg(z1) * z2))
-        a2 = float(jnp.sum(mg(z2) * z1))
-        np.testing.assert_allclose(a1, a2, rtol=1e-4)
-
-        x_true = jnp.where(fluid, jnp.asarray(
-            rng.normal(size=spec.shape), jnp.float32), 0)
-        b = apply_a(x_true)
-        res_j = pcg(apply_p, pad_x(b),
-                    precond=jacobi_preconditioner(ad_p, mask=ad_p > 0),
-                    rtol=1e-5, maxiter=500)
-        res_m = pcg(apply_p, pad_x(b), precond=mg, rtol=1e-5, maxiter=500)
-        assert int(res_m.iters) < int(res_j.iters) // 3
-        r = b - apply_a(unpad_x(res_m.x, n))
-        rel = float(jnp.linalg.norm(np.asarray(r).ravel())
-                    / jnp.linalg.norm(np.asarray(b).ravel()))
-        assert rel < 2e-5
-
-
-def test_packed_multigrid_projection_matches_dense():
-    """project() on the packed path with preconditioner='multigrid' (the
-    packed-smoother cycle) matches the dense-path multigrid projection."""
-    import dataclasses
-    from jax.experimental.pallas import tpu as pltpu
-    from fluidsim_tpu.models.flip import project
-    from fluidsim_tpu.ops import transfer_fast as tf
-    from fluidsim_tpu.ops import transfer as tr
-
-    scene = get_scene("water_cube_drop", bound=8, density=3.0)
-    sim = FlipSim(scene)
-    for _ in range(3):
-        sim.step()
-    st = sim.state
-    params = FlipParams(bound=8, wall=scene.spec.wall,
-                        preconditioner="multigrid")
-    pos, vel, flat = tf.sort_by_cell(st.pos, st.vel, 8)
-    w, mom, occ = tf.p2g_fused(pos, vel, flat, sim.solid, 8, "flip")
-    velg = tr.normalize_velocity(w, mom)
-    fluid = (occ > 0) & (~sim.solid)
-    dt = jnp.asarray(0.1, jnp.float32)
-
-    ref = project(params, velg, fluid, sim.solid, dt)
-    with pltpu.force_tpu_interpret_mode():
-        out = project(dataclasses.replace(params, pallas_transfer=True),
-                      velg, fluid, sim.solid, dt)
-    np.testing.assert_allclose(np.asarray(out[0]), np.asarray(ref[0]),
-                               atol=5e-4, rtol=1e-3)

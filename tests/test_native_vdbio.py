@@ -87,3 +87,27 @@ def test_async_queue(tmp_path):
         o = np.asarray(g.origin) - np.asarray(r.origin)
         s = tuple(slice(int(o[d]), int(o[d]) + 21) for d in range(3))
         np.testing.assert_array_equal(r.values[s], g.values)
+
+
+def test_build_native_goes_through_make(tmp_path, monkeypatch):
+    """Native tools are built from the sources by make, which rebuilds a
+    binary older than its source (a stale or foreign binary is not used
+    as is) and, with ``force``, rebuilds regardless."""
+    import shutil
+    import time
+
+    for f in ("Makefile", "vdbcheck.cc"):
+        shutil.copy(os.path.join(native.NATIVE_DIR, f), tmp_path)
+    monkeypatch.setattr(native, "NATIVE_DIR", str(tmp_path))
+    exe = tmp_path / "vdbcheck"
+    exe.write_text("stale")
+    os.utime(exe, (1, 1))                      # older than the source
+    assert native.build_native("vdbcheck")
+    assert exe.read_bytes()[:4] == b"\x7fELF"
+    t0 = exe.stat().st_mtime_ns
+    time.sleep(0.01)
+    assert native.build_native("vdbcheck")     # up to date: untouched
+    assert exe.stat().st_mtime_ns == t0
+    assert native.build_native("vdbcheck", force=True)
+    assert exe.stat().st_mtime_ns > t0
+    assert not native.build_native("no_such_target")

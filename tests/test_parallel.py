@@ -155,32 +155,18 @@ def test_sharded_runs_on_two_devices():
     assert np.isfinite(float(m["kinetic_energy"]))
 
 
-def test_sharded_pallas_matches_single_chip():
-    """The Pallas slab-kernel path (interpret mode on the CPU mesh) must
-    reproduce the single-chip step like the XLA slab path does."""
-    from fluidsim_tpu.models.flip import FlipParams
-
+@pytest.mark.parametrize("ndev", [2, 3, 8])
+def test_sharded_matches_single_chip_slab_widths(ndev):
+    """Slab widths other than 4 devices, including one that does not
+    divide the grid (25 rows over 3 devices pads the last slab)."""
     scene = get_scene("water_cube_drop", bound=12, density=3.0)
     single = FlipSim(scene)
-    params = FlipParams(bound=12, wall=10, pallas_transfer=True,
-                        pallas_interpret=True)
-    sharded = ShardedFlipSim(scene, params=params, mesh=_mesh(4))
-    assert sharded.params.pallas_transfer
+    sharded = ShardedFlipSim(scene, mesh=_mesh(ndev))
     assert sharded.num_particles == single.num_particles
-
-    for i in range(3):
+    for _ in range(3):
         ms = single.step()
         mp = sharded.step()
         np.testing.assert_allclose(float(mp["kinetic_energy"]),
                                    float(ms["kinetic_energy"]), rtol=2e-3)
-        np.testing.assert_allclose(float(mp["dt"]), float(ms["dt"]),
-                                   rtol=1e-3)
         assert int(mp["num_fluid_cells"]) == int(ms["num_fluid_cells"])
         assert int(mp["lost"]) == 0
-
-    pos_s = np.asarray(single.state.pos)
-    alive = np.asarray(sharded.state.alive)
-    pos_p = np.asarray(sharded.state.pos)[alive]
-    assert pos_p.shape == pos_s.shape
-    np.testing.assert_allclose(pos_p[np.lexsort(pos_p.T)],
-                               pos_s[np.lexsort(pos_s.T)], atol=5e-3)

@@ -143,11 +143,12 @@ def test_clamp_singular_bounds_and_reconstruction():
 
 
 def test_no_default_precision_matmuls_in_physics_modules():
-    """Regression guard for the TPU bf16-matmul hazard: a bare ``@`` (or a
-    default-precision einsum) on f32 operands lowers to an MXU dot with
-    bf16 inputs on TPU (~4e-3 relative error).  This silently corrupted
-    the MPM deformation-gradient update until the on-TPU C++-oracle parity
-    run caught it.  Physics modules must route small products through
+    """Regression guard for the TF32 hazard on the H100: a bare ``@`` (or a
+    default-precision einsum) on f32 operands may run on the tensor cores
+    in TF32, which keeps about three decimal digits (~1e-3 relative
+    error).  Reduced-precision products of that kind once corrupted the
+    MPM deformation-gradient update until the C++-oracle parity run caught
+    it.  Physics modules must route small products through
     ``svd3.mm3``/``mv3`` (unrolled elementwise) or pin a precision."""
     import pathlib
     import re
@@ -156,7 +157,7 @@ def test_no_default_precision_matmuls_in_physics_modules():
     physics = ["models/flip.py", "models/mpm.py", "ops/svd3.py",
                "ops/apic.py", "ops/mpm_fast.py", "ops/smallmat.py",
                "ops/transfer.py", "ops/transfer_fast.py",
-               "ops/transfer_pallas.py", "ops/pressure.py", "ops/pcg.py",
+               "ops/pressure.py", "ops/pcg.py",
                "parallel/flip_sharded.py", "parallel/mpm_sharded.py"]
     offenders = []
     for rel in physics:

@@ -2,7 +2,7 @@
 an INDEPENDENT from-spec archive parser (no shared code with
 ``io/vdb.py`` or ``native/vdbio.cc`` — see its header comment), so a
 successful parse + matching voxel counts/checksums is non-self-referential
-evidence of format correctness (VERDICT r1 'What's missing' #3)."""
+evidence of format correctness."""
 
 import json
 import os
@@ -12,19 +12,13 @@ import numpy as np
 import pytest
 
 from fluidsim_tpu.io import vdb
-
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(HERE, "native", "vdbcheck.cc")
-EXE = os.path.join(HERE, "native", "vdbcheck")
+from fluidsim_tpu.io.native import NATIVE_DIR, build_native
 
 
 @pytest.fixture(scope="module")
 def vdbcheck():
-    if not os.path.exists(EXE) or (os.path.getmtime(EXE)
-                                   < os.path.getmtime(SRC)):
-        subprocess.check_call(["g++", "-O2", "-std=c++17", "-o", EXE, SRC,
-                               "-lz"])
-    return EXE
+    assert build_native("vdbcheck"), "make -C native vdbcheck failed"
+    return os.path.join(NATIVE_DIR, "vdbcheck")
 
 
 def _run(exe, path):
@@ -90,7 +84,7 @@ def test_cli_output_parses(tmp_path, vdbcheck):
 
 def test_value_types_parse_with_independent_parser(tmp_path, vdbcheck):
     """Int32/Bool/Double/Vec3d/... grids + an instance descriptor all parse
-    with the from-spec parser, with matching checksums (VERDICT r2 item 7)."""
+    with the from-spec parser, with matching checksums."""
     rng = np.random.default_rng(13)
     act = rng.random((16, 16, 16)) < 0.5
     shared = rng.standard_normal((16, 16, 16)).astype(np.float32)
